@@ -8,7 +8,7 @@ active and asserts its claims against numpy/sklearn oracles.
 Run on the CPU mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/demo.py --cpu
-or on the TPU backend (first run pays remote compiles):
+or on the default backend (a GPU where JAX finds one):
     python examples/demo.py
 """
 

@@ -1,17 +1,17 @@
-"""polars_ols_tpu — a TPU-native vectorized least-squares execution engine.
+"""polars_ols_tpu — a vectorized least-squares execution engine on JAX/XLA.
 
 A from-scratch JAX/XLA framework with the capabilities of the reference
 polars_ols polars-plugin (github.com/azmyrajab/polars_ols): a columnar
 DataFrame/expression substrate, six null policies, a hash-partitioned
-grouped engine, and batched TPU solvers for OLS/WLS/Ridge/Lasso/ElasticNet/
+grouped engine, and batched device solvers for OLS/WLS/Ridge/Lasso/ElasticNet/
 NNLS, recursive (Kalman) and rolling-window least squares, multi-target
 regression, a formula API, out-of-sample prediction and model statistics.
 
 Where the reference parallelizes per group on rayon threads and solves each
 group with faer/LAPACK on a CPU core, this engine batches every group into
-one XLA program (moments via MXU matmuls, batched factorizations, parallel
-prefix scans for the moving-window models) and shards the group axis across
-TPU meshes (polars_ols_tpu.parallel).
+one XLA program (moments via batched matmuls, batched factorizations,
+parallel prefix scans for the moving-window models) and shards the group axis
+across device meshes (polars_ols_tpu.parallel).
 """
 
 from __future__ import annotations

@@ -4,38 +4,44 @@ The reference keeps its hot host-side machinery (group hashing, series ->
 ndarray conversion) in native Rust inside polars itself; our equivalent is a
 small C++ shared library providing O(N) open-addressing hash factorization
 of group keys — the host-side step that precedes every grouped solve. The
-TPU compute path itself is pure XLA and needs no native code.
+device compute path itself is pure XLA and needs no native code.
 
-Falls back to numpy transparently when the library has not been built
-(``make -C polars_ols_tpu/engine/native``).
+The library is built at first use (``make -C polars_ols_tpu/engine/native``,
+with ``-march=native`` for the machine that runs it). When it cannot be
+built or loaded, the layouts fall back to numpy and a warning says why.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 from typing import Optional
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
+
 _LIB = None
 _TRIED = False
 
 
-def _make(native_dir, force=False):
-    """Best-effort build of the shared library (g++ is part of the
-    supported toolchain)."""
+def _make(native_dir, force=False) -> Optional[str]:
+    """Build the shared library (g++ is part of the supported toolchain).
+    Returns None on success, else what make (or starting it) reported."""
     import subprocess
 
     try:
-        subprocess.run(
+        proc = subprocess.run(
             ["make", "-C", native_dir] + (["-B"] if force else []),
             capture_output=True,
+            text=True,
             timeout=120,
             check=False,
         )
-    except (OSError, subprocess.TimeoutExpired):
-        pass
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return str(e)
+    return None if proc.returncode == 0 else (proc.stderr or proc.stdout)[-2000:]
 
 
 # any symbol introduced by the newest source revision: its absence from the
@@ -54,15 +60,18 @@ def _load():
     path = os.path.join(native_dir, "libpols_native.so")
     # make's dependency rule rebuilds when the source is newer (no-op
     # otherwise) — covers the git-pull-over-stale-.so case
-    _make(native_dir)
+    err = _make(native_dir)
     if os.path.exists(path):
         try:
             with open(path, "rb") as f:
                 if _NEWEST_SYMBOL not in f.read():
-                    _make(native_dir, force=True)
+                    err = _make(native_dir, force=True)
         except OSError:
             pass
     if not os.path.exists(path):
+        logger.warning(
+            "native layout library not built; host layouts use numpy: %s", err
+        )
         return None
     def bind():
         lib = ctypes.CDLL(path)
@@ -87,11 +96,14 @@ def _load():
 
     try:
         _LIB = bind()
-    except (OSError, AttributeError):
+    except (OSError, AttributeError) as e:
         # rebuilding here cannot help: dlopen of the same path returns the
         # already-loaded handle for the rest of the process (the staleness
         # pre-checks above run BEFORE the first dlopen for exactly this
         # reason), so fall back to numpy everywhere
+        logger.warning(
+            "native layout library failed to load; host layouts use numpy: %s", e
+        )
         _LIB = None
     return _LIB
 
@@ -128,9 +140,9 @@ def native_factorize(
 
 def native_layout_build(gids: np.ndarray, num_groups: int):
     """Counting-sort group layout: (counts, order, rank) in two linear
-    passes (no argsort, no 8M-element fancy-index gathers — ~150x the numpy
-    build at 8M rows on this host). Returns None when the native library is
-    unavailable or a gid is out of range (caller falls back to numpy)."""
+    passes (no argsort, no 8M-element fancy-index gathers). Returns None
+    when the native library is unavailable or a gid is out of range
+    (caller falls back to numpy)."""
     lib = _load()
     if lib is None:
         return None

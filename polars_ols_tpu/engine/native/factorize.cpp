@@ -1,4 +1,4 @@
-// Native host-side runtime helpers for the TPU least-squares engine.
+// Native host-side runtime helpers for the least-squares engine.
 //
 // The reference keeps its host-side group hashing inside polars' Rust
 // engine (reference layer L3; SURVEY §1). Our equivalent: an O(N)

@@ -4,7 +4,7 @@ API-parity layer with the reference's polars_ols/least_squares.py: same
 function names, same kwargs dataclasses with the same defaults and
 validation (least_squares.py:47-160), same pre-processing (intercept
 injection and sqrt-weight WLS scaling, :163-196) — but the expressions are
-built on the TPU engine's AST and evaluate as batched JAX programs.
+built on the engine's AST and evaluate as batched JAX programs.
 """
 
 from __future__ import annotations
@@ -113,7 +113,7 @@ class RLSKwargs(Kwargs):
 class RollingKwargs(Kwargs):
     """Rolling OLS parameters (reference least_squares.py:143-160).
 
-    `use_woodbury` is accepted for API parity; the TPU engine's batched
+    `use_woodbury` is accepted for API parity; the engine's batched
     prefix-sum kernel solves every window directly, so it is a no-op.
     """
 
@@ -301,7 +301,7 @@ def compute_rolling_least_squares(
     if mode == "residuals":
         # warm-up NaNs -> nulls (:407-409). For predictions the engine
         # folds the NaN->null conversion into the fused query program (an
-        # expression-level pass would cost a serialized device round-trip).
+        # expression-level pass would cost a separate device program).
         expr = expr.fill_nan(None)
     return expr
 

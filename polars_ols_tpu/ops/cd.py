@@ -7,7 +7,7 @@ Sweep-for-sweep equivalent of the reference's `solve_elastic_net`
 cyclic with naive residual add-back/subtract (:423-434) and convergence is
 ``||w - w_old||_2 < tol`` (:436-445).
 
-TPU formulation: a `lax.while_loop` over sweeps containing a `lax.fori_loop`
+Device formulation: a `lax.while_loop` over sweeps containing a `lax.fori_loop`
 over coordinates, vmapped over the group axis. Excluded rows arrive zeroed so
 they contribute nothing to any inner product. The `cd_active_set` variant of
 the reference (:447-488) permanently removes a coordinate from the sweep the
@@ -142,14 +142,13 @@ def _cd_cov_single(
 
 
 # above this K the cyclic sweep's K sequential coordinate steps (each a
-# handful of tiny ops) dominate wall-clock on this backend; the accelerated
+# handful of tiny ops) dominate wall-clock on an accelerator; the accelerated
 # proximal-gradient formulation converges in whole-vector iterations instead
 _FISTA_MIN_K = 33
 
 
 def _mv(M: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """K x K f64 matvec as elementwise+reduce (the einsum form lowers to the
-    emulated-f64 MXU on this backend)."""
+    """K x K f64 matvec as elementwise+reduce (fuses with its neighbours)."""
     return (M * v[None, :]).sum(axis=1)
 
 
@@ -237,7 +236,7 @@ def _active_set_polish(
     a_l2 w| > a_l1`` demands activation and re-solving — runs under a
     scalar ``lax.cond`` only when round 1 actually changed the support
     (FISTA at 20x-tight inner tol almost always identifies it exactly, and
-    on this backend each round costs ~4-5 ms of per-op dispatch latency).
+    each round is a batch of small sequential device ops).
     A monotone safeguard makes the polish never-worse lane-wise: the
     result is kept only where it does not increase the elastic-net
     objective over the incoming FISTA iterate. This is what protects the

@@ -2,7 +2,7 @@
 
 The reference solves each group independently with faer/LAPACK
 (src/least_squares.rs:93-371). Here every solver is batched over the group
-axis G: moments are accumulated with MXU batched matmuls over a split-padded
+axis G: moments are accumulated with batched matmuls over a split-padded
 row layout, factorizations run as XLA batched kernels, and the solver
 dispatch table (src/expressions.rs:361-388, defaults least_squares.rs:
 220-231) is resolved statically at trace time.
@@ -66,8 +66,8 @@ def resolve_solve_method(
     (src/expressions.rs:361-388; OLS default QR if n>k else SVD,
     least_squares.rs:220-231; ridge default Cholesky, :342-371).
 
-    TPU amendment: for overdetermined unregularized fits the auto default
-    is the fused normal-equation path ('chol') rather than QR — one MXU
+    Amendment: for overdetermined unregularized fits the auto default
+    is the fused normal-equation path ('chol') rather than QR — one
     moment pass + the vectorized batched Cholesky, with the eigh-pinv
     fallback covering rank deficiency (minimum-norm like the reference's
     fallbacks). Explicitly requested 'qr'/'svd' are always honored.

@@ -1,14 +1,19 @@
 """Batched linear-algebra primitives with data-dependent fallbacks.
 
-TPU-first replacements for the reference's faer/LAPACK layer
+Batched replacements for the reference's faer/LAPACK layer
 (src/least_squares.rs:20-371): everything is *batched* over a leading group
-axis and expressed so XLA can tile the matmuls onto the MXU. The reference's
+axis and expressed as whole-batch XLA operations. The reference's
 Cholesky -> SVD/LU/QR failure fallbacks (least_squares.rs:287-328) are
 reproduced data-dependently inside jit with `lax.cond` + `where` selects.
 
-All factorizations run in f64: this TPU backend emulates f64 at >10 Tflop/s
-for matmul, and batched cholesky/eigh/svd/qr are supported natively by XLA,
-so fp64 coefficient parity with numpy.linalg.lstsq is preserved end-to-end.
+All factorizations run in f64, so fp64 coefficient parity with
+numpy.linalg.lstsq is preserved end-to-end.
+
+Several small-K tiers below (unrolled Cholesky, gather-free LU, unrolled
+Householder, lane-major QR and Jacobi SVD) replace XLA's batched
+factorization calls. They predate the GPU port; they are plain JAX and
+run on the GPU as they stand. Whether each still beats `jnp.linalg`
+(cuSOLVER) on the GPU has not been measured.
 """
 
 from __future__ import annotations
@@ -118,10 +123,9 @@ def _chol_solve_vectorized(A: jnp.ndarray, rhs: jnp.ndarray):
 def _chol_solve_unrolled(A: jnp.ndarray, rhs: jnp.ndarray):
     """Fully unrolled batched Cholesky solve for small static K.
 
-    XLA's batched Cholesky/triangular-solve custom calls cost ~100-200 ms
-    for [10k, 5, 5] f64 on this TPU backend; unrolling the K^2/2 multiply-
-    adds into plain elementwise ops over the batch lanes turns the whole
-    solve into fused VPU code (micro-seconds at the same shape). Negative
+    Unrolling the K^2/2 multiply-adds into plain elementwise ops over the
+    batch lanes turns the whole solve into a few fused elementwise kernels
+    in place of batched factorization calls. Negative
     or zero pivots produce NaN/Inf naturally (sqrt/div), which the caller's
     finite-check turns into the eigh fallback — the same failure semantics
     as the reference's Cholesky error path (src/least_squares.rs:287-328).
@@ -184,8 +188,8 @@ def psd_solver(A: jnp.ndarray):
 
     Iterative-refinement loops (CSNE sweeps, engine/fit.py) solve against
     the same normal matrix several times; re-running `solve_psd` per sweep
-    re-factorizes A each time — at K=100 that is 4 extra emulated-f64
-    Cholesky factorizations per query. Failed (non-PD) lanes take the
+    re-factorizes A each time — at K=100 that is 4 extra Cholesky
+    factorizations per query. Failed (non-PD) lanes take the
     eigh-pinv fallback on every call, under `lax.cond` exactly like
     `solve_psd` (the factor is identity-substituted on those lanes so the
     substitution stays finite)."""
@@ -245,7 +249,7 @@ def solve_psd(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     branchless per batch element: lanes whose Cholesky produced non-finite
     values take the eigh pseudo-solve result instead. The fallback pass only
     runs (via lax.cond) when at least one lane failed. Small K uses the
-    unrolled VPU factorization (no XLA custom call).
+    unrolled elementwise factorization (no XLA custom call).
     """
     rhs = b[..., None] if b.ndim == A.ndim - 1 else b
     out, _, _ = _solve_psd_inner(A, rhs)
@@ -287,12 +291,11 @@ def solve_psd_cond_ok(A: jnp.ndarray, b: jnp.ndarray):
 def _lu_solve_vectorized(A: jnp.ndarray, rhs: jnp.ndarray):
     """Batched partial-pivot LU solve with O(K) fused column passes.
 
-    The TPU backend's LU custom call crashes its compiler, so — like the
-    vectorized Cholesky above — Gaussian elimination is expressed as K
-    whole-submatrix elimination steps whose every op is elementwise over
-    the batch lanes. Per-step row pivoting is done WITHOUT gathers (f64
-    random gathers run ~0.5 GB/s here): the pivot row is extracted with a
-    one-hot multiply+reduce and the swap applied as two rank-1 corrections.
+    Like the vectorized Cholesky above, Gaussian elimination is expressed
+    as K whole-submatrix elimination steps whose every op is elementwise
+    over the batch lanes. Per-step row pivoting is done WITHOUT gathers:
+    the pivot row is extracted with a one-hot multiply+reduce and the swap
+    applied as two rank-1 corrections.
 
     Args:
         A: [..., K, K] general square (no symmetry assumed).
@@ -383,9 +386,8 @@ def _householder_reduce(X: jnp.ndarray, Y: jnp.ndarray):
     """Batched Householder reduction: X = Q [R; 0], returns (R [..., K, K]
     upper-triangular, QtY [..., K, M]).
 
-    XLA's batched QR custom call runs at emulated-f64 speed (~2 s for
-    [10k, 271, 5]); K explicit reflections as whole-tensor elementwise ops
-    + reductions use the VPU at bandwidth instead. Zero rows (masked /
+    K explicit reflections as whole-tensor elementwise ops + reductions,
+    in place of XLA's batched QR call. Zero rows (masked /
     padding) are genuine zero observations and pass through correctly;
     zero pivot columns (rank deficiency) make the reflection the identity
     and leave a zero diagonal in R for the caller's rank handling."""
@@ -412,10 +414,10 @@ def _householder_reduce(X: jnp.ndarray, Y: jnp.ndarray):
 
 
 # a reflection pass costs O(K) whole-tensor ops; above this K the op count
-# (and [G,R,K] traffic per reflection) favors the XLA QR custom call —
-# except for small batch counts, where the custom call's emulated-f64 cost
-# dominates and the unrolled reflections win up to K ~ 128 (see
-# _use_unrolled_householder)
+# (and [G,R,K] traffic per reflection) favors the XLA QR call — except for
+# small batch counts, where the unrolled reflections are kept up to K ~ 128
+# (see _use_unrolled_householder). Thresholds predate the GPU port and
+# have not been retuned.
 _HOUSEHOLDER_MAX_K = 32
 
 
@@ -434,11 +436,8 @@ _JACOBI_SWEEPS = 8
 
 def householder_lanes(X: jnp.ndarray, Y: jnp.ndarray):
     """Lane-major batched Householder reduction: X [R, K, G] (group axis
-    minor-most, filling the VPU lanes), Y [R, M, G] -> (R [K, K, G] upper
-    triangular, QtY [K, M, G]).
-
-    3.5x faster than the row-major reduction at the grouped shape on this
-    backend (33 ms vs 117 ms at [10k groups, 232, 5]); exact to ~1e-14.
+    minor-most, so every op runs over all groups at once), Y [R, M, G] ->
+    (R [K, K, G] upper triangular, QtY [K, M, G]). Exact to ~1e-14.
     Zero (masked/padding) rows pass through as genuine zero observations."""
     Rn, K, G = X.shape
     rows = jnp.arange(Rn)
@@ -464,9 +463,8 @@ def jacobi_svd_lanes(W: jnp.ndarray, n_sweeps: int = _JACOBI_SWEEPS):
     """One-sided Jacobi SVD of W [K, K, G] in lane-major layout: returns
     (U [K, K, G], sigma [K, G], V [K, K, G]) with W = U diag(sigma) V^T.
 
-    Every rotation is elementwise over the G lanes — the whole factorization
-    costs ~30 ms at [5, 5, 10k] where the XLA batched SVD custom call costs
-    675 ms; singular values match LAPACK to ~1e-14. Zero columns (rank
+    Every rotation is elementwise over the G lanes, in place of XLA's
+    batched SVD call; singular values match LAPACK to ~1e-14. Zero columns (rank
     deficiency) yield sigma = 0 with U columns left untouched."""
     K, _, G = W.shape
     V = jnp.eye(K, dtype=W.dtype)[:, :, None] * jnp.ones((1, 1, G), W.dtype)
@@ -552,7 +550,7 @@ def svd_lstsq(
     alpha == 0).
 
     For tall problems the SVD is taken of the K x K triangular factor from a
-    QR of X — an MXU-friendly reduction that preserves singular values.
+    QR of X — a reduction that preserves singular values.
 
     Args:
         X: [..., N, K] (rows may be zero — masked rows contribute nothing).

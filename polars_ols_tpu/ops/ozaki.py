@@ -1,8 +1,6 @@
 """Exact f64-grade grouped moments via int8 digit matmuls (Ozaki scheme).
 
-The TPU has no f64 hardware: XLA's emulated f64 batched matmul runs the
-moment accumulation (XtX/Xty) ~40x below the chip's integer MXU rate.
-This module reformulates the moment matmuls as the Ozaki splitting used
+This module reformulates the moment matmuls (XtX/Xty) as the Ozaki splitting used
 for exact GEMM on integer tensor cores (Ozaki et al., "Error-free
 transformations of matrix multiplication", Numer. Algorithms 2012; the
 int8 variant popularized for DGEMM emulation on low-precision matrix
@@ -11,21 +9,25 @@ radix-128 int8 digits with a per-(block, column) power-of-two scale,
 
     v = m * sum_i d_i * 128^-(i+1),   d_i in [-64, 64], m = 2^(e+1),
 
-so every digit-pair product is exact in int8->int32 MXU arithmetic with
+so every digit-pair product is exact in int8->int32 matmul arithmetic with
 exact int32 accumulation (|d|<=64 -> products <=4096, x512 rows << 2^31).
 
 Layout trick: the D digit planes are stored CONCATENATED along the column
 axis, Zcat [S, R, D*C] int8, so ALL digit-pair products come from ONE
-batched int8 matmul Zcat^T Zcat [S, D*C, D*C] — a single MXU tile when
-D*C <= 128 — whose [C, C] sub-blocks are the pair products P_ij. The f64
+batched int8 matmul Zcat^T Zcat [S, D*C, D*C] whose [C, C] sub-blocks
+are the pair products P_ij. The f64
 recombination sums the sub-blocks with power-of-two level scales,
 truncating pairs with i + j > PAIR_SUM (~58 significant bits kept —
 9.7e-14 max relative error vs the f64 einsum, within the engine's fp64
 parity gate).
 
-Used when inputs are fully valid (NaN/null-free); the f64 einsum path
-remains for null-policy masking (NaN propagation semantics) and as the
-universal fallback.
+Used when inputs are fully valid (NaN/null-free) and CONFIG.use_ozaki is
+on; the f64 einsum path remains for null-policy masking (NaN propagation
+semantics), for the CPU, and as the universal fallback. The scheme was
+written for hardware without f64 units. On one H100, which has them, XLA
+compiles the int8 matmul to a Triton GEMM, and the headline grouped OLS
+(8M x 5 x 10k) still ran faster with it than with the f64 einsum, so
+CONFIG.use_ozaki defaults on for the GPU (PERF.md, Findings).
 """
 
 from __future__ import annotations
@@ -42,12 +44,11 @@ RADIX = 128.0
 N_DIGITS = 8  # digits 0..7
 PAIR_SUM = 7  # keep digit pairs with i + j <= PAIR_SUM (~58 bits)
 
-# Exactness bound on the block row count: digit-pair products are <= 64^2 and
-# must accumulate exactly — int32 accumulation holds to 2^31/4096 = 2^19 rows,
-# but the Pallas variant recombines per-level sums in f32 whose integer
-# exactness ends at 2^24/4096 = 4096... the binding constraint across both
-# paths is R <= 512 (4096 * 512 = 2^21 < 2^24, with headroom for the f32
-# level sums). Enforced here independently of CONFIG.moment_chunk_rows.
+# Bound on the block row count: digit-pair products are <= 64^2 and must
+# accumulate exactly. int32 accumulation holds to 2^31/4096 = 2^19 rows; the
+# bound of 512 also keeps every block's sum (<= 2^21) exact in f32, so a
+# GEMM that accumulates in f32 stays exact too. Enforced here independently
+# of CONFIG.moment_chunk_rows.
 MAX_BLOCK_ROWS = 512
 
 

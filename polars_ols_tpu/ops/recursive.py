@@ -1,10 +1,10 @@
-"""Recursive least squares (exponentially-forgetting Kalman filter) on TPU.
+"""Recursive least squares (exponentially-forgetting Kalman filter), batched.
 
 The reference updates a K x K covariance state sequentially per sample
 (src/least_squares.rs:494-598): ``r = 1 + x'Px/ff; k = Px/(r ff);
 coef += k (y - x'coef); P = P/ff - k k' r`` — a true O(N) sequential scan.
 
-TPU-native reformulation: that recursion is exactly the recursive solution
+Parallel reformulation: that recursion is exactly the recursive solution
 of discounted ridge regression. With M_0 = P0^{-1} = (1/c) I and
 ``M_t = lam_t M_{t-1} + v_t x_t x_t'``, ``b_t = lam_t b_{t-1} + v_t x_t y_t``
 (lam_t = forgetting factor on valid rows, 1 on skipped rows — invalid rows
@@ -12,8 +12,8 @@ leave the state untouched, :586-590), the RLS coefficient state satisfies
 ``coef_t = M_t^{-1} b_t`` identically. First-order linear recurrences are
 associative, so the whole state trajectory is a parallel
 ``associative_scan`` over (lam, U, u), followed by one *batched* Cholesky
-solve per row — O(log N) depth instead of O(N), and every matmul lands on
-the MXU. Chunked to bound memory at chunk * K^2.
+solve per row — O(log N) depth instead of O(N). Chunked to bound memory
+at chunk * K^2.
 """
 
 from __future__ import annotations
@@ -83,7 +83,8 @@ def _rls_single(
 # above this feature count the chunked associative-scan solves (chunk*K^2
 # state) stop paying for themselves: the per-row Sherman-Morrison scan —
 # the reference's own K^2-per-row recursion (src/least_squares.rs:531-540)
-# — is ~20x faster at K=100 on this backend and needs no K^3 solves.
+# — needs no K^3 solves. The cutoff predates the GPU port and has not been
+# re-measured there.
 _SM_MIN_K = 33
 
 

@@ -1,7 +1,7 @@
-"""Rolling-window least squares on TPU.
+"""Rolling-window least squares, batched.
 
 The reference maintains XtX / Xty (or its Woodbury inverse) with sequential
-per-row rank-2 updates (src/least_squares.rs:600-1032). TPU-native
+per-row rank-2 updates (src/least_squares.rs:600-1032). Parallel
 reformulation: windowed moments are *differences of prefix sums* —
 ``W_t = P_t - P_{t-w}`` with ``P`` the running sum of per-row outer products
 (invalid rows contribute zero). The add/subtract streams are cumsummed in

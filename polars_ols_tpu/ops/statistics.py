@@ -71,9 +71,8 @@ def _feature_metrics_jit(
     G, k, _ = XtX.shape
     A = XtX + alpha * jnp.eye(k, dtype=F64)
     if k <= 32:
-        # the vectorized elementwise Cholesky inverse: the batched
-        # cholesky/cho_solve custom calls cost 100-200 ms at [10k, 5, 5]
-        # on this backend (and custom calls don't partition under SPMD)
+        # the vectorized elementwise Cholesky inverse (custom calls don't
+        # partition under SPMD)
         from .linalg import _chol_solve_vectorized
 
         A_inv, ok = _chol_solve_vectorized(

@@ -15,12 +15,15 @@ import re
 _DTYPE_BYTES = {"f64": 8, "f32": 4, "s64": 8, "s32": 4, "u32": 4, "bf16": 2,
                 "f16": 2, "s8": 1, "u8": 1, "pred": 1}
 _SHAPE_RE = re.compile(r"\b(f64|f32|s64|s32|u32|bf16|f16|s8|u8|pred)\[([0-9,]*)\]")
+# Three forms are counted once each: sync ops (the CPU backend) by the bare
+# op name; async pairs (all-reduce-start/-done, ...) by the -done half, whose
+# result is the final tensor (the -start result is a tuple that would
+# double-count); collectives wrapped in generic async-start/async-done (as
+# XLA's GPU backend emits reduce-scatter and all-to-all) by the op inside
+# the wrapped computation, which the bare name matches.
 _COLL_RE = re.compile(
     r"\b(all-reduce|reduce-scatter|all-gather|collective-permute|all-to-all)"
-    r"(-done)?\("  # optimized TPU HLO emits async start/done pairs; count
-    # the -done half only — its result is the final tensor, while the
-    # -start result is a tuple that would double-count (sync forms, as on
-    # the CPU backend, still match the bare op name)
+    r"(-done)?\("
 )
 
 

@@ -1,16 +1,16 @@
-"""Multi-chip sharded grouped least squares (mesh + collectives).
+"""Multi-device sharded grouped least squares (mesh + collectives).
 
 The reference's only parallelism is host-local: polars invokes the plugin
 once per group on rayon threads (reference README:19; SURVEY §2.3). The
-TPU-native replacement built here scales the *group batch axis* across a
+replacement built here scales the *group batch axis* across a
 ``jax.sharding.Mesh``:
 
 * **Row/data parallelism with moment merging** (`fit_moments_sharded`):
   rows stay wherever they were ingested — each shard computes *partial*
   per-group normal-equation moments (XtX, Xty) for the groups its rows
-  touch via one MXU-bound segment-sum, then a single ``psum_scatter``
+  touch via one segment-sum, then a single ``psum_scatter``
   merges partials across shards AND scatters the group axis, so every
-  chip Cholesky-solves an even 1/n slice of groups. A final tiled
+  device Cholesky-solves an even 1/n slice of groups. A final tiled
   ``all_gather`` replicates coefficients for row-local predictions.
   Because XtX/Xty accumulation is associative, groups spanning shards
   (skew, heavy groups) are merged *exactly* — no row shuffle is needed
@@ -28,14 +28,15 @@ TPU-native replacement built here scales the *group batch axis* across a
   assembles the padded layout there, preserving global row order inside
   each group (scan time order).
 
-Communication rides ICI: the moments path moves only ``[G, K, K]`` moments
-and ``[G, K]`` coefficients, never the ``[N, K]`` row data; the shuffle
-path moves each row exactly once.
+On one host the cards are joined all to all (NVLink on an H100 host), so
+a flat 1-D ``("data",)`` mesh is the layout; the moments path moves only
+``[G, K, K]`` moments and ``[G, K]`` coefficients, never the ``[N, K]``
+row data, and the shuffle path moves each row exactly once.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Optional, Sequence, Tuple
 
 import jax
@@ -72,12 +73,13 @@ def make_mesh(
 
     Multi-process (multi-host) runs get a 2-D ``("hosts", "chips")`` mesh by
     construction: the outer axis enumerates processes (its collectives cross
-    DCN), the inner axis the chips local to each host (ICI). Hierarchical
-    reductions over ``("hosts", "chips")`` therefore reduce intra-host over
-    ICI first and exchange only the K x K / K-sized partial moments across
-    DCN — the communication layout SURVEY §5's distributed-backend row
-    prescribes. Single-process runs keep the flat 1-D ``("data",)`` mesh;
-    pass ``shape`` + two axis names for an explicit 2-D layout."""
+    the network between hosts), the inner axis the devices local to each
+    host. Hierarchical reductions over ``("hosts", "chips")`` therefore
+    reduce within a host first and exchange only the K x K / K-sized partial
+    moments between hosts — the communication layout SURVEY §5's
+    distributed-backend row prescribes. Single-process runs, such as one
+    host with several GPUs, keep the flat 1-D ``("data",)`` mesh; pass
+    ``shape`` + two axis names for an explicit 2-D layout."""
     if axis_names is None:
         n_proc = jax.process_count()
         if n_proc > 1 and n_devices is None and shape is None:
@@ -636,18 +638,25 @@ def solve_groups_sharded(mesh: Mesh, solver, arrays, group_axes=None, **solver_k
     ``solver(*arrays, **solver_kwargs)`` must be vmapped/batched over the
     leading group axis (all of ops.direct / ops.cd / ops.recursive /
     ops.rolling qualify). XLA partitions the batch across the mesh with no
-    communication — the exact TPU analog of the reference's per-group rayon
+    communication — the device analog of the reference's per-group rayon
     dispatch.
     """
     if group_axes is None:
         group_axes = mesh_row_axes(mesh)
     placed, G = shard_group_axis(mesh, arrays, group_axes)
-    out_shardings = NamedSharding(mesh, P(group_axes))
-    fn = jax.jit(
-        partial(solver, **solver_kwargs), out_shardings=out_shardings
+    fn = _group_solver_program(
+        solver, tuple(sorted(solver_kwargs.items())),
+        NamedSharding(mesh, P(group_axes)),
     )
     from .introspect import record_program
 
     record_program("groups_sharded", fn, tuple(placed), {})
     out = fn(*placed)
     return out[:G]
+
+
+@lru_cache(maxsize=64)
+def _group_solver_program(solver, kwargs_items, out_shardings):
+    """One jitted program per (solver, kwargs, sharding): a fresh
+    ``jax.jit`` per query would trace and lower the solver on every call."""
+    return jax.jit(partial(solver, **dict(kwargs_items)), out_shardings=out_shardings)

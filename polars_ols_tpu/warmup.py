@@ -2,16 +2,11 @@
 
 The reference imports instantly because its solvers are ahead-of-time
 compiled Rust (src/expressions.rs); here every distinct (family, bucketed
-shape) pair costs a 20-200 s XLA compile on first use. Two measured facts
-(BENCHMARKS.md "First-call latency", experiments/aot_probe{,2}.py) shape
-this utility:
-
-- serialized-executable AOT warm start is a net LOSS on this backend (the
-  first run of a deserialized executable re-establishes server-side state,
-  283 s vs 6.8 s recompile), so warmup works by *running* each program;
-- the remote compile service memoizes byte-identical programs at ~2x, so
-  one process warming the family also halves every later process's cold
-  start on the same backend.
+shape) pair costs an XLA compile on first use. warmup runs one query per
+family at the workload's shapes, so the programs are compiled before the
+first real query. With JAX's persistent compilation cache (on by default,
+config.py), a later process at the same shapes loads them from the cache
+instead of compiling.
 
 Usage: call ``polars_ols_tpu.warmup(n_rows, n_features, n_groups=...)``
 once at service start (or once per fleet) with the workload's real shapes
@@ -59,9 +54,9 @@ def warmup(
     """Compile and execute one query per (family, mode) at this shape.
 
     Returns {"family/mode": seconds} — first-call times, dominated by the
-    remote compiles this call exists to absorb. Subsequent queries at the
-    same bucketed shape reuse the compiled executables (in-process) and
-    hit the compile service's byte-identical memoization (cross-process).
+    compiles this call exists to absorb. Subsequent queries at the same
+    bucketed shape reuse the compiled executables (in-process) and the
+    persistent compilation cache (cross-process).
 
     ``n_groups=None`` warms the single-frame path; an integer warms the
     grouped ``.over()`` path at that group count.

@@ -216,7 +216,7 @@ def test_alpha_sweep_reuses_compiled_program():
     ridge query compiles, further queries at different alphas (and plain ols,
     which shares the auto->chol path) must trigger ZERO new XLA backend
     compiles — the cold-start property for regularization sweeps (each
-    program costs 20-200 s of remote compile on the target backend)."""
+    compile costs seconds on the card)."""
     import jax.monitoring
 
     rng = np.random.default_rng(9)

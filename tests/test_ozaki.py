@@ -1,7 +1,8 @@
 """int8 digit-moment (Ozaki) and pair-gather path tests.
 
-These paths are enabled by default on accelerator backends only; here they
-are forced on so the CPU suite exercises the exact code the TPU runs.
+These paths default on only where config.BACKEND_DEFAULTS says so (the
+digit moments on the GPU); here they are forced on so the CPU suite
+exercises the same code.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ from polars_ols_tpu.ops.ozaki import decompose_blocks, moments_from_digits
 
 
 @pytest.fixture
-def force_tpu_paths():
+def force_digit_paths():
     oz, pg = CONFIG._use_ozaki, CONFIG._pair_gather
     CONFIG.use_ozaki = True
     CONFIG.pair_gather = True
@@ -39,7 +40,7 @@ def test_digit_moments_match_f64_einsum():
     np.testing.assert_allclose(M, ref, rtol=5e-13, atol=1e-13 * np.abs(ref).max())
 
 
-def test_grouped_ols_with_ozaki_matches_lstsq(force_tpu_paths):
+def test_grouped_ols_with_ozaki_matches_lstsq(force_digit_paths):
     rng = np.random.default_rng(1)
     n, k, g = 4_000, 4, 13
     X = rng.normal(size=(n, k)) * np.asarray([1.0, 10.0, 0.1, 100.0])
@@ -61,7 +62,7 @@ def test_grouped_ols_with_ozaki_matches_lstsq(force_tpu_paths):
         np.testing.assert_allclose(preds[m], X[m] @ beta, rtol=1e-8, atol=1e-10)
 
 
-def test_ridge_with_ozaki_matches_normal_equations(force_tpu_paths):
+def test_ridge_with_ozaki_matches_normal_equations(force_digit_paths):
     rng = np.random.default_rng(2)
     n, k, g = 2_000, 3, 7
     X = rng.normal(size=(n, k))
@@ -79,28 +80,3 @@ def test_ridge_with_ozaki_matches_normal_equations(force_tpu_paths):
         beta = np.linalg.solve(X[m].T @ X[m] + alpha * np.eye(k), X[m].T @ y[m])
         np.testing.assert_allclose(preds[m], X[m] @ beta, rtol=1e-8, atol=1e-10)
 
-
-def test_pallas_moment_kernel_matches_xla(force_tpu_paths):
-    """The fused Pallas digit-moment kernel (interpret mode on CPU) agrees
-    with the XLA formulation of the same algorithm."""
-    from polars_ols_tpu.ops.pallas_moments import moments_from_digits_pallas
-
-    CONFIG.interpret_pallas = True
-    try:
-        rng = np.random.default_rng(3)
-        S, R, C, G = 16, 128, 5, 4
-        Zp = rng.normal(size=(S, R, C)) * np.exp(rng.normal(size=(1, 1, C)) * 3)
-        wp = rng.random((S, R)) > 0.1
-        bg = (np.arange(S) % G).astype(np.int32)
-        Zcat, m = decompose_blocks(jnp.asarray(Zp), jnp.asarray(wp))
-        M_x, c_x = moments_from_digits(Zcat, m, jnp.asarray(wp), jnp.asarray(bg), G)
-        M_p, c_p = moments_from_digits_pallas(
-            Zcat, m, jnp.asarray(wp), jnp.asarray(bg), G
-        )
-        np.testing.assert_allclose(
-            np.asarray(M_p), np.asarray(M_x), rtol=5e-13,
-            atol=1e-13 * float(np.abs(np.asarray(M_x)).max()),
-        )
-        np.testing.assert_array_equal(np.asarray(c_x), np.asarray(c_p))
-    finally:
-        CONFIG.interpret_pallas = False

@@ -1,7 +1,7 @@
 """Multi-chip sharding tests on the virtual 8-device CPU mesh.
 
 The reference has no distributed path at all (SURVEY §2.3) — these tests
-cover what the TPU build adds: sharded moment merges must equal the
+cover what the engine adds: sharded moment merges must equal the
 single-device grouped solve exactly (associativity of XtX), and the
 group-parallel solver path must match its unsharded counterpart.
 """
@@ -173,7 +173,7 @@ def test_auto_shard_expression_api():
 
 def test_make_mesh_multiprocess_topology(monkeypatch):
     """On multi-host runs make_mesh must build the ("hosts", "chips") mesh
-    with processes on the outer (DCN) axis — verified by faking
+    with processes on the outer (cross-host) axis — verified by faking
     jax.process_count() on the 8-device CPU mesh (4 hosts x 2 chips)."""
     monkeypatch.setattr(jax, "process_count", lambda: 4)
     mesh = make_mesh()
@@ -280,3 +280,54 @@ def test_shuffle_rows_feed_scan_solver():
         jnp.asarray(Xe), jnp.asarray(ye), jnp.asarray(ve), **kw
     ))
     np.testing.assert_allclose(sharded, single, rtol=1e-12, atol=1e-12)
+
+
+_SYNC_HLO = "  %ar = f64[8,5]{1,0} all-reduce(f64[8,5]{1,0} %p), replica_groups={}"
+_PAIR_HLO = """  %s = (f64[8,5]{1,0}, f64[8,5]{1,0}) all-reduce-start(f64[8,5]{1,0} %p)
+  %d = f64[8,5]{1,0} all-reduce-done((f64[8,5]{1,0}, f64[8,5]{1,0}) %s)"""
+_WRAPPED_HLO = """%wrapped (p: f64[8,5]) -> f64[2,5] {
+  %rs = f64[2,5]{1,0} reduce-scatter(f64[8,5]{1,0} %p), dimensions={0}
+}
+  %a = ((f64[8,5]{1,0}), f64[2,5]{1,0}) async-start(f64[8,5]{1,0} %x), calls=%wrapped
+  %b = f64[2,5]{1,0} async-done(((f64[8,5]{1,0}), f64[2,5]{1,0}) %a)"""
+
+
+@pytest.mark.parametrize(
+    "hlo,expected",
+    [(_SYNC_HLO, 8 * 5 * 8), (_PAIR_HLO, 8 * 5 * 8), (_WRAPPED_HLO, 2 * 5 * 8)],
+    ids=["sync", "start-done-pair", "async-wrapped"],
+)
+def test_collective_bytes_counts_each_hlo_form_once(hlo, expected):
+    from polars_ols_tpu.parallel.introspect import collective_bytes
+
+    assert collective_bytes(hlo) == expected
+
+
+def test_sharded_fit_program_reads_collective_bytes():
+    """The compiled sharded moments program carries its psum_scatter /
+    all_gather merges, and the byte count sees them."""
+    from polars_ols_tpu.parallel.introspect import last_program_collective_bytes
+
+    X, y, gids = _grouped_data(n=512, k=3, g=16, seed=9)
+    fit_moments_sharded(
+        make_mesh(), jnp.asarray(X), jnp.asarray(y),
+        jnp.ones(len(y), dtype=bool), jnp.asarray(gids), num_groups=16,
+    )
+    assert last_program_collective_bytes("fit_moments") > 0
+
+
+def test_group_sharded_solver_compiles_once_per_signature():
+    """Repeated group-sharded queries reuse one jitted program instead of
+    tracing the solver again on every call."""
+    from polars_ols_tpu.ops.moving import solve_rolling_lanes
+    from polars_ols_tpu.parallel.introspect import LAST_PROGRAMS
+
+    rng = np.random.default_rng(11)
+    arrays = (jnp.asarray(rng.normal(size=(16, 40, 3))),
+              jnp.asarray(rng.normal(size=(16, 40))), jnp.ones((16, 40), bool))
+    kw = dict(window=8, min_periods=3, alpha=0.0, positional=True)
+    first = solve_groups_sharded(make_mesh(), solve_rolling_lanes, arrays, **kw)
+    program = LAST_PROGRAMS["groups_sharded"][0]
+    again = solve_groups_sharded(make_mesh(), solve_rolling_lanes, arrays, **kw)
+    assert LAST_PROGRAMS["groups_sharded"][0] is program
+    np.testing.assert_array_equal(np.asarray(first), np.asarray(again))
